@@ -42,17 +42,19 @@ def _pad_batch(n: int) -> int:
 
 
 class Index:
-    """TPU-native HNSW index with the canonical hnswlib-style surface."""
+    """HNSW index on the accelerator with the canonical hnswlib-style
+    surface."""
 
-    #: graphs at or above this size use the MXU seed scan for layer-0 entry
-    #: (below it, greedy descent's 1-entry beam is cheap and parity-exact)
+    #: graphs at or above this size use the matmul seed scan for layer-0
+    #: entry (below it, greedy descent's 1-entry beam is cheap and
+    #: parity-exact)
     SEED_THRESHOLD = 4096
     #: graphs at or above this size auto-use the packed inline-int8 engine
-    #: (models/packed.py) when its payload fits PACKED_BUDGET_BYTES — the
-    #: measured-fastest query path (small graphs keep the classic engine's
-    #: exact oracle-parity trajectories)
+    #: (models/packed.py) when its payload fits PACKED_BUDGET_SHARE of the
+    #: device memory (utils/memory.py); small graphs keep the classic
+    #: engine's exact oracle-parity trajectories
     PACKED_THRESHOLD = 100_000
-    PACKED_BUDGET_BYTES = 8 << 30
+    PACKED_BUDGET_SHARE = 0.5
 
     def __init__(self, space: str, dim: int):
         _check_space(space)
@@ -197,8 +199,8 @@ class Index:
         self.ef = int(ef)
 
     def _seed_index(self):
-        """Lazy SeedIndex for the MXU entry scan on large graphs (None when
-        too small or no upper-layer nodes exist)."""
+        """Lazy SeedIndex for the matmul entry scan on large graphs (None
+        when too small or no upper-layer nodes exist)."""
         st = self._require_init()
         if int(st.graph.n) < self.SEED_THRESHOLD:
             return None
@@ -211,9 +213,9 @@ class Index:
     def _packed_index(self):
         """Lazy PackedGraph for the inline-int8 engine; None when the graph
         is small (classic path keeps exact oracle-parity trajectories), the
-        metric has no matmul form, or the payload would exceed the HBM
-        budget (e.g. 768-d or 10M-node indexes — the classic engine handles
-        those)."""
+        metric has no matmul form, or the payload would exceed the memory
+        budget (e.g. 768-d at tens of millions of nodes — the classic
+        engine handles those)."""
         st = self._require_init()
         if int(st.graph.n) < self.PACKED_THRESHOLD:
             return None
@@ -222,9 +224,11 @@ class Index:
         if get_metric(self.space).matmul_score is None:
             return None
         from ocaml_hnsw_tpu.models.packed import pack_d_pad, pack_graph
+        from ocaml_hnsw_tpu.utils.memory import budget_bytes
 
         deg = st.graph.adj0.shape[1]
-        if st.graph.n_cap * deg * pack_d_pad(self.dim) > self.PACKED_BUDGET_BYTES:
+        if (st.graph.n_cap * deg * pack_d_pad(self.dim)
+                > budget_bytes(self.PACKED_BUDGET_SHARE)):
             return None
         if self._packed is None:
             self._packed = pack_graph(st.graph, self.space)
@@ -246,7 +250,6 @@ class Index:
                   **_ignored):
         """Returns (labels i64[Q, k], dists f32[Q, k]); -1 label on padding.
 
-        The defaults ARE the benchmarked fast path (BASELINE.md headline):
         engine="auto" serves large matmul-metric indexes from the packed
         inline-int8 engine (models/packed.py — seed-scan entry, chunked
         payload gathers, bf16 scoring, exact-f32 rerank) and everything else
@@ -258,10 +261,8 @@ class Index:
         beam loop (throughput knob; None = run to convergence).
 
         expand / expand_schedule (packed engine): frontier width per
-        iteration.  The round-4 campaign measured NARROW expansion dominant
-        at 1M — e=2 halves every per-iteration width while iterations only
-        double; expand_schedule=((4,4),(2,22)) with ef=64 is the measured
-        headline operating point (~81k QPS @ recall 0.955) — see bench.py."""
+        iteration (default 2: every per-iteration width halves against 4
+        while the iteration count about doubles)."""
         st = self._require_init()
         if int(st.graph.n) == 0:
             raise RuntimeError("index is empty")
@@ -277,7 +278,8 @@ class Index:
         if engine == "packed" and packed is None:
             raise RuntimeError(
                 "packed engine unavailable: index too small, metric has no "
-                "matmul form, or payload exceeds PACKED_BUDGET_BYTES"
+                "matmul form, or payload exceeds PACKED_BUDGET_SHARE of the "
+                "device memory"
             )
         if packed is not None:
             from ocaml_hnsw_tpu.models.packed import knn_search_packed
@@ -399,10 +401,9 @@ class Index:
 
 
 class FlatIndex:
-    """MXU flat-scan index (models/flat.py): one bf16 matmul over the whole
-    dataset + hardware approx_min_k + exact f32 rerank.  The TPU-native fast
-    path — on v5e it sustains >200k QPS on SIFT1M-shaped data at ~exact
-    recall, where graph traversal is gather-bound at ~15k."""
+    """Flat-scan index (models/flat.py): one bf16 matmul over the whole
+    dataset, ops.select.min_k keeps rerank_k candidates, exact f32 rerank.
+    Near-exact recall at a cost linear in N per query batch."""
 
     exact = False
 
@@ -592,7 +593,7 @@ class FlatIndex:
             self.max_elements = int(z["max_elements"])
         if max_elements is not None and max_elements > self.max_elements:
             # hnswlib resize-on-load: actually grow the tensors (the old
-            # count-only bump let add_items overrun capacity — VERDICT r3)
+            # count-only bump let add_items overrun capacity)
             self.resize_index(max_elements)
 
 

@@ -39,12 +39,12 @@ class HnswConfig:
         "simple" (Alg 3: plain nearest-M; measurably worse recall on
         clustered data, provided for paper completeness and ablations).
       max_level_cap: static upper bound on the layer stack height; needed by the
-        TPU engine for a static adjacency tensor stack.  None = derived from
+        device engine for a static adjacency tensor stack.  None = derived from
         max_elements at index creation.
       storage: on-device dtype of the vector store — "f32" (exact), "bf16"
         (2× less gather bandwidth), or "int8" (4× less; symmetric per-vector
-        quantization — the quantized-distance path of BASELINE config 4).
-        The search is HBM-gather-bound, so storage dtype is the main QPS
+        quantization — the quantized-distance path of the deep10m config).
+        The search is bound by its row gathers, so storage dtype is the main QPS
         lever; distances are always accumulated in f32.
     """
 

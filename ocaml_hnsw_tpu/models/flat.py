@@ -1,21 +1,15 @@
-"""MXU flat-scan index — the TPU-native fast path for moderate-N datasets.
-
-Measured reality on v5e (see SURVEY.md §7 "gather bandwidth" and the profiling
-notes in models/search.py): random row gathers run at ~90M rows/s, which caps
-graph traversal at ~15k QPS on SIFT1M-shaped work, while one bf16 MXU pass
-over the *entire* dataset plus the hardware-accelerated `approx_min_k`
-(the TPU SortOp the ScaNN line of work targets) reaches >200k QPS at ~exact
-recall.  On this hardware the matmul beats the pointer chase — so the
-framework ships both: HNSW (sub-linear, wins at large N / high dim / tight
-memory) and this flat scan (wins wherever the whole dataset fits one chip's
-compute budget), plus the recall/QPS harness to pick per workload.
+"""Flat-scan index: one matrix product over the whole dataset per query
+batch, then an exact rerank.  It is the exact-ish companion of the HNSW
+engine (FlatIndex / BFIndex in api.py) and the kNN pass of the bulk build
+(models/bulk.py).  The bench harness measures both engines per workload.
 
 Pipeline per query batch:
-  1. scores = bf16 MXU contraction against all N rows (‖x‖² − 2⟨q,x⟩ for l2,
-     −⟨q,x⟩ for ip/cosine) — bf16 error is fine here because
-  2. `jax.lax.approx_min_k` keeps `rerank_k` ≫ k candidates, and
-  3. the exact f32 rows of those candidates are gathered (tiny: rerank_k rows
-     per query) and re-scored on the VPU; final exact top-k.
+  1. scores = bf16 tensor-core contraction against all N rows (‖x‖² − 2⟨q,x⟩
+     for l2, −⟨q,x⟩ for ip/cosine), walked in column slabs — bf16 error is
+     fine here because
+  2. `ops.select.min_k` keeps `rerank_k` ≫ k candidates, and
+  3. the exact f32 rows of those candidates are gathered (rerank_k rows per
+     query) and re-scored in f32; final exact top-k.
 """
 
 from __future__ import annotations
@@ -28,11 +22,12 @@ import jax.numpy as jnp
 
 from ocaml_hnsw_tpu.utils import round_up
 from ocaml_hnsw_tpu.ops.distance import INF, HIGHEST
+from ocaml_hnsw_tpu.ops.select import min_k
 
 
 class FlatTensors(NamedTuple):
-    """Flat index state.  scan: bf16[N_cap, D] (or int8 — BASELINE config 4's
-    quantized distance path, 4× less scan HBM for capacity at 10M scale) MXU
+    """Flat index state.  scan: bf16[N_cap, D] (or int8 — the quantized
+    distance path, half the scan memory of bf16 at 10M scale) matmul
     operand; scales: f32[N_cap] per-vector dequant scales (ones for bf16);
     rerank: exact rows (f32, or bf16 when memory-constrained); norms:
     f32[N_cap] ‖x‖² (+inf on empty slots so padding never scores); n: count;
@@ -52,9 +47,8 @@ class FlatTensors(NamedTuple):
 
 def empty_flat(dim: int, max_elements: int, scan_dtype: str = "bf16",
                rerank_dtype: str = "f32") -> FlatTensors:
-    # 4096-row capacity alignment so the Pallas int8 scan kernel's N-tiles
-    # (tn=4096, whose per-G-block output lane dim must be 128-divisible)
-    # divide evenly
+    # 4096-row capacity alignment: whole column slabs for the scan (and the
+    # 4096-row chunks of the pair_dist path)
     n_cap = round_up(max(max_elements, 4096), 4096)
     sd = {"bf16": jnp.bfloat16, "int8": jnp.int8}[scan_dtype]
     rd = {"f32": jnp.float32, "bf16": jnp.bfloat16}[rerank_dtype]
@@ -100,43 +94,47 @@ def flat_add(flat: FlatTensors, rows, start, count) -> FlatTensors:
     )
 
 
-def _chunked_exact_candidates(flat: FlatTensors, q, rerank_k: int,
-                              metric: str, chunk: int = 4096):
-    """Top-rerank_k candidate ids under a registry metric that has no MXU
-    (matmul_score) form: lax.scan over N-chunks of the exact rows, computing
-    pair_dist on the VPU and merging a running top-k.  Correct for any
-    registered metric; linear in N without MXU help, so expect ~10× slower
-    than the bf16 scan path."""
+def _scan_scores(flat: FlatTensors, q, metric: str, exact: bool, start,
+                 width: int):
+    """Rank-equivalent scores f32[B, width] of the queries against flat rows
+    [start, start + width); tombstones and empty slots score +inf.
+
+    Metrics with a matmul form score from one contraction: bf16 (or int8
+    with int32 accumulation) over the scan rows, or f32 at HIGHEST over the
+    rerank rows when exact.  Registry metrics without one score the exact
+    rows through pair_dist."""
     from ocaml_hnsw_tpu.ops.metrics import get_metric
 
     m = get_metric(metric)
-    n_cap = flat.n_cap  # multiple of 4096 (empty_flat)
-    b = q.shape[0]
-
-    def body(carry, start):
-        best_d, best_i = carry
-        rows = jax.lax.dynamic_slice_in_dim(
-            flat.rerank, start, chunk
-        ).astype(jnp.float32)
-        d = m.pair_dist(rows[None], q)  # [B, chunk]
-        ids = start + jnp.arange(chunk, dtype=jnp.int32)
-        dead = jax.lax.dynamic_slice_in_dim(flat.deleted, start, chunk)
-        live = (ids < flat.n) & ~dead
-        d = jnp.where(live[None, :], d, INF)
-        cat_d = jnp.concatenate([best_d, d], axis=1)
-        cat_i = jnp.concatenate(
-            [best_i, jnp.broadcast_to(ids[None, :], (b, chunk))], axis=1
+    sl = lambda a: jax.lax.dynamic_slice_in_dim(a, start, width)  # noqa: E731
+    ids = start + jnp.arange(width, dtype=jnp.int32)
+    live = (ids < flat.n) & ~sl(flat.deleted)
+    if m.matmul_score is None:
+        d = m.pair_dist(sl(flat.rerank).astype(jnp.float32)[None], q)
+        return jnp.where(live[None, :], d, INF)
+    if exact:
+        dot = jnp.einsum("bd,nd->bn", q, sl(flat.rerank).astype(jnp.float32),
+                         precision=HIGHEST)
+    elif flat.scan.dtype == jnp.int8:
+        # symmetric int8 x int8 with int32 accumulation, one f32 rescale by
+        # the per-query x per-vector scales
+        qmax = jnp.max(jnp.abs(q), axis=1)
+        qs = jnp.where(qmax > 0, qmax / 127.0, 1.0)
+        qi = jnp.clip(jnp.round(q / qs[:, None]), -127, 127).astype(jnp.int8)
+        idot = jax.lax.dot_general(
+            qi, sl(flat.scan), (((1,), (1,)), ((), ())),
+            preferred_element_type=jnp.int32,
         )
-        neg, idx = jax.lax.top_k(-cat_d, rerank_k)
-        return (-neg, jnp.take_along_axis(cat_i, idx, axis=1)), None
-
-    init = (
-        jnp.full((b, rerank_k), jnp.inf, jnp.float32),
-        jnp.zeros((b, rerank_k), jnp.int32),
-    )
-    starts = jnp.arange(n_cap // chunk, dtype=jnp.int32) * chunk
-    (_, best_i), _ = jax.lax.scan(body, init, starts)
-    return best_i
+        dot = idot.astype(jnp.float32) * (qs[:, None] * sl(flat.scales)[None])
+    else:
+        dot = jax.lax.dot_general(
+            q.astype(jnp.bfloat16), sl(flat.scan), (((1,), (1,)), ((), ())),
+            preferred_element_type=jnp.float32,
+        )
+    # rank-equivalent (e.g. l2 drops +‖q‖²); empty slots carry norms=+inf,
+    # and `live` masks them for norm-free metrics too
+    scores = m.matmul_score(dot, sl(flat.norms)[None, :])
+    return jnp.where(live[None, :], scores, INF)
 
 
 @partial(jax.jit, static_argnames=("k", "rerank_k", "metric", "exact"))
@@ -150,54 +148,25 @@ def flat_search(
 ):
     """Returns (ids i32[B, k], dists f32[B, k]) ascending, -1/+inf padded.
 
-    exact=True scores the scan in f32 at HIGHEST MXU precision and uses exact
-    top_k (slower; the hnswlib-parity BFIndex semantics).  Default: bf16 scan
-    + approx_min_k + exact f32 rerank (near-exact, ~10× faster)."""
+    exact=True scores the scan in f32 at HIGHEST precision and selects
+    with exact top-k (the hnswlib-parity BFIndex semantics).  Default: bf16
+    scan, `ops.select.min_k` keeps rerank_k candidates, exact f32 rerank.
+    Either way the [B, N] score block is walked in column slabs and never
+    materialised whole."""
     from ocaml_hnsw_tpu.models.search import preprocess_queries
     from ocaml_hnsw_tpu.ops.metrics import get_metric
 
     m = get_metric(metric)
     q = preprocess_queries(queries, metric)
     rerank_k = max(k, min(rerank_k, flat.n_cap))
-    if m.matmul_score is None:
-        # registry metric without an MXU form: exact chunked scan over the
-        # rerank rows via pair_dist (correct for any metric; slower — no MXU)
-        ids = _chunked_exact_candidates(flat, q, rerank_k, metric)
-    elif exact:
-        dot = jnp.einsum(
-            "bd,nd->bn", q, flat.rerank.astype(jnp.float32), precision=HIGHEST
-        )
-    elif flat.scan.dtype == jnp.int8:
-        # config 4 path: symmetric int8×int8 on the MXU, int32 accumulate,
-        # one f32 rescale by the per-query × per-vector scales
-        qmax = jnp.max(jnp.abs(q), axis=1)
-        qs = jnp.where(qmax > 0, qmax / 127.0, 1.0)
-        qi = jnp.clip(jnp.round(q / qs[:, None]), -127, 127).astype(jnp.int8)
-        idot = jax.lax.dot_general(
-            qi, flat.scan, (((1,), (1,)), ((), ())),
-            preferred_element_type=jnp.int32,
-        )
-        dot = idot.astype(jnp.float32) * (qs[:, None] * flat.scales[None, :])
-    else:
-        dot = jax.lax.dot_general(
-            q.astype(jnp.bfloat16),
-            flat.scan,
-            (((1,), (1,)), ((), ())),
-            preferred_element_type=jnp.float32,
-        )
-    if m.matmul_score is not None:
-        # rank-equivalent scores from the one MXU pass (e.g. l2 drops +‖q‖²)
-        scores = m.matmul_score(dot, flat.norms[None, :])
-        scores = jnp.where(flat.deleted[None, :], INF, scores)
-        # empty slots carry norms=+inf (l2-style metrics consume them); for
-        # norm-free metrics mask unoccupied slots explicitly
-        if not m.needs_norms:
-            occupied = jnp.arange(flat.n_cap) < flat.n
-            scores = jnp.where(occupied[None, :], scores, INF)
-        if exact:
-            neg, ids = jax.lax.top_k(-scores, rerank_k)
-        else:
-            _, ids = jax.lax.approx_min_k(scores, rerank_k, recall_target=0.95)
+    # registry metrics without a matmul form score [B, slab, D] diff blocks
+    # through pair_dist, so they take narrow slabs
+    no_mm = m.matmul_score is None
+    _, ids = min_k(
+        partial(_scan_scores, flat, q, metric, exact), flat.n_cap, rerank_k,
+        method="exact" if exact or no_mm else None,
+        slab=4096 if no_mm else None,
+    )
 
     # exact rerank of the candidates (f32, or bf16 upcast when so stored)
     rows = flat.rerank[ids].astype(jnp.float32)  # [B, rerank_k, D]

@@ -1,8 +1,9 @@
 """Device-resident index state: the reference's L1 "layered graph" (SURVEY.md
-§1) re-designed as fixed-degree dense tensors in HBM.
+§1) re-designed as fixed-degree dense tensors in device memory.
 
-The OCaml reference stores per-node neighbor *sets* behind pointers; a TPU
-cannot chase pointers, so layer 0 is one int32[N_cap, degree] matrix with
+The OCaml reference stores per-node neighbor *sets* behind pointers; batched
+tensor programs cannot chase pointers, so layer 0 is one int32[N_cap, degree]
+matrix with
 -1 sentinels in empty slots (SURVEY.md §7 "Data layout").
 
 Upper layers hold only ~N/M^ℓ nodes (paper §4.1), so they live in a single

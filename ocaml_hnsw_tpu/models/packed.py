@@ -1,24 +1,19 @@
-"""Packed inline-neighbor query engine — the round-3 redesign of the
-reference's `search_layer` hot loop (SURVEY.md §3.3) around the measured v5e
-memory system.
+"""Packed inline-neighbor query engine — a redesign of the reference's
+`search_layer` hot loop (SURVEY.md §3.3) around the device's memory system.
 
-Why this exists (measured on v5e, 1M × 128-d, B=8192, 15 iterations):
+Why this exists:
 
   * The classic engine's cost is the per-iteration gather of E·deg candidate
-    vector rows: 96 × 512 B f32 rows/query/iter = 9.09 ms/iter, 62% of the
-    whole query batch (BASELINE.md per-stage profile).  Random-row gathers
-    are transaction-bound (~90 M rows/s), not bandwidth-bound, so the only
-    lever is *fewer, fatter transactions*.
+    vector rows (E·deg scattered 512 B f32 rows per query at 128-d).
+    Random-row gathers pay per transaction, so the lever is *fewer, fatter
+    transactions*.
   * Inline the neighborhood: store, per node, its deg neighbors' vectors as
-    int8 in one contiguous payload.  Expanding E=4 nodes then gathers E·C
-    consecutive ~2 KB chunk rows instead of E·deg scattered 512 B rows:
-    2.96 ms/iter for the same frontier — 3.1× less HBM time.
-  * Score the gathered block with a bf16 elementwise multiply-reduce
-    (+1.95 ms/iter).  Every int8-typed contraction form (einsum,
-    dot_general, elementwise-int32) measured +3.2 ms/iter at this shape —
-    the lane-dimension integer reduce is the slow path on the VPU.
-  * Net effect at the headline operating point: 159.6 → 131.8 ms per 8192
-    queries (51k → 62k QPS) at equal recall.
+    int8 in one contiguous payload.  Expanding E nodes then gathers E·C
+    consecutive ~2 KB chunk rows instead of E·deg scattered rows, and reads
+    4× fewer bytes per neighbor.
+  * Score the gathered block with a bf16 elementwise multiply-reduce.
+    Whether an int8 `dot_general` with int32 accumulation scores faster on
+    the GPU is not measured yet.
 
 Distance arithmetic runs in the quantized domain: vectors are quantized with
 ONE global scale s (x8 = round(x/s)), queries likewise, and
@@ -34,10 +29,10 @@ seed-scan entry, and tombstone semantics are shared with models/search.py
 unchanged; a final exact-f32 rerank of the top beam makes the returned top-k
 ordering exact.
 
-The payload costs N·deg·D_pad bytes of HBM (4.1 GB at 1M × 128-d, M=16) and
-is rebuilt by `pack_graph` after the graph changes — a few hundred ms at 1M,
-amortized across queries (api.Index packs lazily; streaming repacks per
-ingest round).
+The payload costs N·deg·D_pad bytes of device memory (4.1 GB at 1M × 128-d,
+M=16) and is rebuilt by `pack_graph` after the graph changes, amortized
+across queries (api.Index packs lazily; streaming repacks per ingest
+round).
 """
 
 from __future__ import annotations
@@ -102,12 +97,10 @@ class PackedGraph(NamedTuple):
 
 
 def _chunk_width(total: int, max_chunk: int = 2048) -> int:
-    """Chunk rows of <= max_chunk bytes.  The gather is DESCRIPTOR-bound
-    (~90 M rows/s regardless of row width up to the fat-row cliff —
-    BASELINE.md), so fewer/fatter chunks win: scripts/gather_width_bench.py
-    measures where the cliff actually is; callers raise max_chunk to fetch
-    each node's payload as ONE row (e.g. 4096 at deg=32 x 128-d int8).
-    Default 2048 = the round-3 validated layout."""
+    """Chunk rows of <= max_chunk bytes.  The gather pays per row, so
+    fewer/fatter chunks win up to the width where a row stops being one
+    transaction; callers raise max_chunk to fetch each node's payload as
+    ONE row (e.g. 4096 at deg=32 x 128-d int8).  Default 2048."""
     if total <= max_chunk:
         return total
     for w in (4096, 3584, 3072, 2560, 2048, 1536, 1280, 1024, 512, 256, 128):
@@ -115,7 +108,6 @@ def _chunk_width(total: int, max_chunk: int = 2048) -> int:
             return w
     # no preferred width divides: take the largest divisor <= max_chunk
     # rather than silently emitting rows past the fat-row gather cliff
-    # (advisor r4)
     best = max((w for w in range(1, max_chunk + 1) if total % w == 0),
                default=None)
     if best is None or best < 32:
@@ -132,13 +124,11 @@ def pack_d_pad(dim: int) -> int:
 
 
 def _int8_sqnorm(y):
-    """Exact ‖y‖² of int8 rows as int32, computed on the f32 VPU path.
+    """Exact ‖y‖² of int8 rows as int32, computed in f32.
 
     Products ≤ 127² = 16129 and sums ≤ D·16129 are exactly representable in
     f32 up to D = 1039 (< 2²⁴), so the f32 multiply-reduce is bit-exact
-    there — and the lane-dimension *integer* reduce it replaces is the
-    measured-slow path on the VPU (module docstring).  Falls back to int32
-    arithmetic for wider rows."""
+    there.  Falls back to int32 arithmetic for wider rows."""
     if y.shape[-1] <= 1024:
         yf = y.astype(jnp.float32)
         return jnp.sum(yf * yf, axis=-1).astype(jnp.int32)
@@ -228,8 +218,7 @@ def _pack_rounds(vectors, scales, adj0, inv_s, d_pad: int, w: int, slab: int,
             # meta_0 carries the 32 ids, meta_1 the 32 int32 norms (deg<32
             # rows pad with -1 ids / 0 norms), so ONE gather of the node's
             # chunk rows delivers adjacency + norms + vectors — no separate
-            # meta-table descriptor round per iteration (measured 0.24
-            # ms/iter at e=2, scripts/iterlab.py)
+            # meta-table gather per iteration
             pad_deg = 32 - deg
             ids_b = _i32_to_bytes(
                 jnp.pad(a, ((0, 0), (0, pad_deg)), constant_values=-1))
@@ -260,7 +249,7 @@ def pack_graph(graph: GraphTensors, metric: str,
                fused: bool = False) -> PackedGraph:
     """Build the inline-neighbor payload from a (re)built graph.
 
-    One pass over adjacency in HBM-friendly slabs; the global scale is the
+    One pass over adjacency in slabs; the global scale is the
     max |component| of the stored vectors (dequantized) — or the caller's
     `scale` when future inserts/queries need a wider range — so integer-grid
     data quantizes exactly.  Must be re-run after any insert (api.Index does
@@ -315,12 +304,11 @@ def quantize_queries(q, scale):
 
 
 # --------------------------------------------------- build-time maintenance
-# The level-0 construction beam is 75% of a warm insert round (242 of 321 ms
-# at 1M, scripts/profile_build.py), and it pays the same per-row gather tax
-# the packed engine was built to avoid.  Maintaining the payload *during*
-# construction lets insert_round run its efc-wide beam on inlined int8
-# neighborhoods; each round then refreshes only the O(R·M) payload rows whose
-# adjacency changed (~15 ms) instead of re-packing the graph (~10 s at 1M).
+# The level-0 construction beam dominates an insert round, and it pays the
+# same per-row gather tax the packed engine was built to avoid.  Maintaining
+# the payload *during* construction lets insert_round run its efc-wide beam
+# on inlined int8 neighborhoods; each round then refreshes only the O(R·M)
+# payload rows whose adjacency changed instead of re-packing the graph.
 
 def empty_packed(n_cap: int, deg: int, dim: int, scale) -> PackedGraph:
     """All-sentinel payload for an empty graph (meta ids -1, zero norms,
@@ -415,9 +403,8 @@ def _beam_body(packed: PackedGraph, q8, qn, ef: int, needs_norms: bool,
         q16o = q16[:, 1::2]
 
     def body(beam_pk, beam_d):
-        # E nearest unexpanded beam members (beam sorted ⇒ cumsum mask).
-        # (A vmapped-searchsorted variant of this selection measured 2.2
-        # ms/iter SLOWER — the one-hot/argmax form is the fast one.)
+        # E nearest unexpanded beam members (beam sorted ⇒ cumsum mask,
+        # then a one-hot/argmax per selected slot)
         unexp = (beam_pk & 1) == 0
         slot = jnp.cumsum(unexp.astype(jnp.int32), axis=1)
         sel_mask = unexp & (slot <= expand)
@@ -434,7 +421,7 @@ def _beam_body(packed: PackedGraph, q8, qn, ef: int, needs_norms: bool,
         if fused:
             # ONE gather delivers ids + norms + vectors: each chunk row is
             # [meta_slice (256/c B) | payload bytes] — no separate
-            # meta-table descriptor round (iterlab: 0.24 ms/iter at e=2)
+            # meta-table gather
             cid = (safe[:, :, None] * c_full
                    + jnp.arange(c, dtype=jnp.int32)[None, None, :]
                    ).reshape(b, -1)
@@ -456,10 +443,9 @@ def _beam_body(packed: PackedGraph, q8, qn, ef: int, needs_norms: bool,
                    + jnp.arange(c, dtype=jnp.int32)[None, None, :]
                    ).reshape(b, -1)
             vec8 = packed.pay[cid].reshape(b, expand, deg, stored)
-        # dot as a bf16 elementwise multiply-reduce: the int8 dot_general /
-        # einsum forms all cost +3.2 ms/iter at this shape (lane-dim int32
-        # reduce); bf16 fma + f32 accumulate measured +1.95.  int8 values are
-        # exact in bf16; products round to 8 significand bits — noise well
+        # dot as a bf16 elementwise multiply-reduce with f32 accumulation.
+        # int8 values are exact in bf16; products round to 8 significand
+        # bits — noise well
         # under the global-scale quantization error, and the final exact-f32
         # rerank absorbs both.
         if bits == 8:
@@ -506,7 +492,7 @@ def _entries_to_packed_beam(entry_ids, entry_d, ef: int):
     # beam state packs (id, expanded) into ONE int32 — pk = 2·id + exp —
     # so the bitonic merge carries a single payload lane instead of two
     # (each compare-exchange stage does one fewer masked-select + permute
-    # over [B, 2·p2]; measured ~-0.9 ms/iter at the headline shape).
+    # over [B, 2·p2]).
     # Sentinel id=-1 packs to -1 (= 2·(-1)+1: expanded), so `pk & 1` and
     # `pk >> 1` (arithmetic shift) decode both fields with sign intact.
     beam_pk = jnp.where(beam_ids < 0, -1, beam_ids * 2)
@@ -527,19 +513,12 @@ def beam_search_layer_packed_duo(
     fused: bool = False,
     ways: int = 2,
 ):
-    """Interleaved serving loop (VERDICT r4 task 2a): the batch is split
-    into `ways` INDEPENDENT sub-batches whose beam iterations are emitted
-    back-to-back inside one fori_loop body.  Two effects, both measured on
-    v5e at 1M (round 5):
-
-    * each sub-batch keeps the B=4096 per-iteration shape, dodging the
-      superlinear per-iteration cliff a fused B=8192 loop hits
-      (2.70 ms/iter at B=8192 vs 2x1.04 for two 4096 halves);
-    * one dispatch serves ways x 4096 queries, amortizing the fixed
-      per-batch cost (seed scan, rerank, ~3 ms host dispatch).
-
-    Net: 102.3k -> 106.9k QPS at recall 0.9514 (ways=2, sub-batch 4096)
-    vs the plain B=4096 loop.  Results are bit-identical to running each
+    """Interleaved serving loop: the batch is split into `ways`
+    INDEPENDENT sub-batches whose beam iterations are emitted back-to-back
+    inside one fori_loop body, so each sub-batch keeps a smaller
+    per-iteration shape while one dispatch amortizes the fixed per-batch
+    cost (seed scan, rerank, host dispatch).  Whether this pays on the GPU
+    is not measured yet.  Results are bit-identical to running each
     sub-batch through the plain loop — they share no state."""
     b = q8.shape[0]
     h = b // ways
@@ -582,8 +561,8 @@ def beam_search_layer_packed(
 ):
     """The packed layer-0 beam loop: per iteration, expand the E nearest
     unexpanded beam nodes by gathering their meta row (ids+norms) and payload
-    chunk rows, scoring all E·deg inlined neighbors with one int8 MXU
-    contraction.  Beam dedup only (the classic engine's measured-default
+    chunk rows, scoring all E·deg inlined neighbors with one bf16
+    multiply-reduce.  Beam dedup only (the classic engine's default
     visited mode); distances land in true-f32 domain so the shared bitonic
     merge applies unchanged.  Returns (ids, d, iters) like the classic
     layer.
@@ -623,11 +602,10 @@ def beam_search_layer_packed(
             cond, body, (beam_pk, beam_d, jnp.int32(0))
         )
     else:
-        # capped-iteration serving mode: at the headline operating points
-        # (mi≈15, B=8192) essentially no beam converges before the cap, so
-        # the while_loop's any() over [B, ef] each iteration — a full-state
-        # reduction feeding the loop predicate — is pure overhead; fori_loop
-        # drops it
+        # capped-iteration serving mode: when essentially no beam converges
+        # before the cap, the while_loop's any() over [B, ef] each
+        # iteration — a full-state reduction feeding the loop predicate — is
+        # pure overhead; fori_loop drops it
         beam_pk, beam_d, iters = jax.lax.fori_loop(
             0, max_iters, lambda i, s: body(s), (beam_pk, beam_d, jnp.int32(0))
         )
@@ -636,15 +614,12 @@ def beam_search_layer_packed(
     return beam_pk >> 1, beam_d, iters
 
 
-# NOTE (round 3, measured): a software-pipelined variant of the packed beam
-# loop (select+gather for iteration t+1 issued before iteration t's merge, so
-# the payload DMA could overlap the VPU merge) was built and raced on v5e at
-# 1M: 64.0k QPS @ recall 0.9495 vs the plain loop's 67.3k @ 0.9510 at equal
-# knobs (ef=96, mi=15; scripts/qlab.py).  XLA:TPU schedules the gather and
-# the merge serially on the one TensorCore either way, so the restructuring
-# bought no overlap and the 1-merge-stale expansion order cost recall.
-# Deleted; true gather/compute overlap needs an in-kernel DMA pipeline
-# (ops/pallas/payload_score.py).
+# NOTE: a software-pipelined variant of the packed beam loop (select+gather
+# for iteration t+1 issued before iteration t's merge) bought no overlap
+# when it was tried, and its 1-merge-stale expansion order cost recall.  On
+# the GPU, true gather/score overlap is the job of a fused gather+score
+# kernel (ROADMAP.md), worth writing only once a trace shows the beam
+# iteration gather-bound.
 
 
 @partial(
@@ -744,7 +719,7 @@ def knn_search_packed(
         )
     # tombstone filter on the approx beam, keep top rerank_k live candidates.
     # The beam arrives sorted; dead entries perturb that, so both selections
-    # are small bitonic sorts (lax.top_k has a multi-ms floor per call).
+    # are small bitonic sorts.
     dead = graph.deleted[jnp.maximum(ids, 0)] | (ids < 0)
     d = jnp.where(dead, INF, d)
     _, top_ids = topk_ascending(d, jnp.where(dead, -1, ids), rerank_k)

@@ -2,11 +2,10 @@
 adjacency for serving, so the packed query engine gathers half the payload
 bytes per expansion.
 
-Why (measured, BASELINE.md): the packed beam loop is gather-bound at
-~2.25 ms/iter for E=4 expansions of deg=32 payloads (two 2 KB chunk rows per
-node at 128-d).  The `deg_limit` ladder showed that halving the payload
-(scoring only each row's nearest 16) reaches ~100k QPS — but at ruined
-recall, because a plain distance-ascending truncation drops exactly the
+Why: the packed beam loop is gather-bound (E expansions of deg=32
+payloads, two 2 KB chunk rows per node at 128-d).  Halving the payload by
+`deg_limit` (scoring only each row's nearest 16) halves those bytes but
+ruins recall, because a plain distance-ascending truncation drops exactly the
 diversity/long-range edges the Alg-4 heuristic (paper arXiv:1603.09320
 Alg 4; SURVEY.md §3.4) put there for navigability.
 
@@ -20,8 +19,8 @@ The distilled adjacency is for QUERIES only — the build graph keeps its
 full M_max0 rows (shrink semantics and future inserts are untouched);
 `pack_graph(graph.with_adj0(refined), ...)` builds the serving payload.
 
-Cost at 1M×128-d: one pass of ~32 gathered rows + one 32x32 pairwise block
-per node, slab-batched — ~1-2 s on v5e, amortized over the index lifetime.
+Cost: one pass of ~32 gathered rows + one 32x32 pairwise block per node,
+slab-batched, amortized over the index lifetime.
 """
 
 from __future__ import annotations
@@ -79,7 +78,7 @@ def _refine_rounds(vectors, scales, norms, adj0, out_deg: int, metric: str,
         cnorm = norms[jnp.maximum(cand, 0)]
         # ascending-distance candidate order (the oracle's admit order); the
         # vectors ride along as an in-register permutation payload (cheaper
-        # than a second HBM gather of the sorted rows)
+        # than a second device-memory gather of the sorted rows)
         p2 = next_pow2(kt)
         if p2 > kt:
             d = jnp.pad(d, ((0, 0), (0, p2 - kt)), constant_values=jnp.inf)

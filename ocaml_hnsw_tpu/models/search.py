@@ -1,5 +1,5 @@
-"""Batched HNSW search on TPU — the reference's L2 hot loops (SURVEY.md §3.2/3.3)
-re-designed as lockstep tensor programs.
+"""Batched HNSW search on the accelerator — the reference's L2 hot loops
+(SURVEY.md §3.2/3.3) re-designed as lockstep tensor programs.
 
 The OCaml reference's `search_layer` pops one candidate from a heap, chases its
 adjacency pointers, and pushes survivors back (SURVEY.md §3.3).  Here, B queries
@@ -12,14 +12,14 @@ advance together under one `lax.while_loop`:
        pointer chase),
     3. filters by a dense visited bitset (test + scatter-or set; hashed to a
        small per-query bitmap at scale — see ops/bitset.py),
-    4. computes the [B, E·deg] distance block (gather + exact VPU f32),
+    4. computes the [B, E·deg] distance block (gather + exact f32),
     5. merges candidates into the beam with `lax.top_k` (replaces both heaps).
 
   A query whose beam is fully expanded stops contributing work; the loop ends
   when every query converges (beam divergence is amortized across the batch —
   SURVEY.md §7 "hard parts").
 
-Performance shape (measured on v5e): the loop is HBM-bound — vector-row
+Performance shape: the loop is bound by device-memory traffic — vector-row
 gathers plus the per-iteration copy XLA makes of the visited buffer (scatters
 in a while_loop are not aliased).  Multi-expand divides the iteration count
 and therefore the copies; the hashed bitmap divides the copied bytes.
@@ -55,6 +55,7 @@ from ocaml_hnsw_tpu.ops.bitset import (
     first_occurrence_mask,
     hash_ids,
 )
+from ocaml_hnsw_tpu.ops.select import min_k
 from ocaml_hnsw_tpu.ops.sortmerge import (
     bitonic_sort, entries_to_beam, merge_into_beam, topk_ascending,
 )
@@ -115,11 +116,10 @@ def beam_search_layer(
 
     compact_k: if set, each iteration packs the fresh candidates left and
     gathers/scores only the first compact_k of the expand·deg slots.  The
-    vector-row gather is the loop's entire cost on v5e (90 M rows/s,
-    transaction-bound, distance compute hidden under it), and only ~2/3 of
-    candidate slots are fresh in practice, so compact_k ≈ 0.75·expand·deg
-    cuts ~25% of the gather for a measured ~0.001 recall cost (overflow
-    drops are re-found through graph links on later iterations)."""
+    vector-row gather is the loop's main cost, and only ~2/3 of candidate
+    slots are fresh in practice, so compact_k ≈ 0.75·expand·deg cuts ~25% of
+    the gather for a small recall cost (overflow drops are re-found through
+    graph links on later iterations)."""
     b = q.shape[0]
     n_cap = vectors.shape[0]
     expand = max(1, min(expand, ef))
@@ -148,8 +148,8 @@ def beam_search_layer(
     if not beam_only:
         visited = bitset_set(visited, vidx, uniq)
 
-    # Initial beam = best ef of the entries (bitonic at the narrow entry
-    # width — lax.top_k has a multi-ms floor per call).  Beam state packs
+    # Initial beam = best ef of the entries (bitonic sort at the narrow
+    # entry width).  Beam state packs
     # (id, expanded) into ONE int32 — pk = 2·id + exp; sentinel -1 decodes
     # to (id=-1, expanded) — so the merge carries a single payload lane.
     beam_ids, beam_d = entries_to_beam(entry_ids, entry_d, ef)
@@ -208,9 +208,9 @@ def beam_search_layer(
             skey, (s_ids,) = bitonic_sort(key, [cand_ids])
             cand_ids = jnp.where(skey[:, :compact_k] < kk,
                                  s_ids[:, :compact_k], -1)
-        # 4. distance block (gather + exact VPU f32)
+        # 4. distance block (gather + exact f32)
         cand_d = dists_to_ids(vectors, scales, norms, q, qn, cand_ids, metric)
-        # 5. beam merge: bitonic network (top_k has a ms-scale floor per call)
+        # 5. beam merge: bitonic network
         cand_pk = jnp.where(cand_ids < 0, -1, cand_ids * 2)
         beam_d, (beam_pk,) = merge_into_beam(
             beam_d, [(beam_pk, -1)], cand_d, [(cand_pk, -1)], ef,
@@ -226,14 +226,12 @@ def beam_search_layer(
 class SeedIndex(NamedTuple):
     """Coarse entry-point index: a dense copy of every level>=1 node's vector.
 
-    TPU-first redesign of Alg 5's upper-layer descent (the reference's greedy
+    A matmul redesign of Alg 5's upper-layer descent (the reference's greedy
     ef=1 pointer chase, SURVEY.md §3.2): the upper layers hold ~N/M nodes, so
-    one bf16 MXU contraction over all of them + approx top-E IS the descent —
+    one bf16 contraction over all of them + top-E selection IS the descent —
     no adjacency gathers, and the E seeds are the (near-)exact nearest
     upper-layer nodes, which is strictly better entry quality than greedy's
-    single local optimum.  Measured on v5e at 1M: descent 47.5 ms/4096 queries
-    vs 12.6 ms for this scan, and seeded beams converge in ~31 iterations at
-    recall 0.980 where descent-entered beams needed 77 for 0.947.
+    single local optimum, so seeded beams converge in fewer iterations.
 
     ids:   i32[U_cap]     global node id per row (padding repeats a real row)
     vecs:  bf16[U_cap, D] that node's stored vector (dequantized, bf16)
@@ -258,8 +256,7 @@ def build_seed_index(graph: GraphTensors, metric: str,
     (the backbone), the level-1 remainder subsampled evenly.  The [B, U]
     score block is the scan's whole cost, so halving the bank halves the
     entry stage; level sampling is iid, so any level-1 subset is an
-    unbiased coarse net (recall cost measured < 0.001 at cap=16384 on 1M,
-    round 5)."""
+    unbiased coarse net."""
     lv = np.asarray(graph.levels)
     upper = np.nonzero(lv >= 1)[0].astype(np.int32)
     if upper.size == 0:
@@ -317,9 +314,9 @@ def seed_index_from_bank(graph: GraphTensors, bank, n_live, metric: str
 
 def seed_entries(graph: GraphTensors, seeds: SeedIndex, q, qn, e: int,
                  metric: str):
-    """Top-E upper-layer nodes per query: one MXU scan + approx_min_k, then
-    exact re-scoring of the E winners (so beam ordering sees true distances).
-    Returns (ids i32[B, E], d f32[B, E])."""
+    """Top-E upper-layer nodes per query: one matmul scan + ops.select.min_k,
+    then exact re-scoring of the E winners (so beam ordering sees true
+    distances).  Returns (ids i32[B, E], d f32[B, E])."""
     from ocaml_hnsw_tpu.ops.metrics import get_metric
 
     mm = get_metric(metric).matmul_score
@@ -328,21 +325,21 @@ def seed_entries(graph: GraphTensors, seeds: SeedIndex, q, qn, e: int,
             f"metric {metric!r} has no matmul_score; seed-scan entry needs "
             "one — pass seeds=None to use greedy descent"
         )
-    dot = jax.lax.dot_general(
-        q.astype(jnp.bfloat16), seeds.vecs, (((1,), (1,)), ((), ())),
-        preferred_element_type=jnp.float32,
-    )
-    scores = mm(dot, seeds.norms[None, :])  # rank-equivalent (e.g. +‖q‖² dropped)
-    scores = scores + seeds.bias[None, :]
-    # bf16 scores: the [B, U_cap] block is the scan's whole HBM cost (2.1 GB
-    # at 1M/B=8192 in f32 — ~7 ms measured); the downcast fuses into the
-    # matmul epilogue so approx_min_k reads half the bytes.  Ranking
-    # precision only — the E winners are exactly re-scored below.
-    _, ii = jax.lax.approx_min_k(scores.astype(jnp.bfloat16), e)
-    live = jnp.take_along_axis(
-        jnp.broadcast_to(seeds.bias[None, :] == 0.0, scores.shape), ii, axis=1
-    )
-    sids = jnp.where(live, seeds.ids[ii], -1)
+
+    def block(start, width):
+        sl = lambda a: jax.lax.dynamic_slice_in_dim(a, start, width)  # noqa
+        dot = jax.lax.dot_general(
+            q.astype(jnp.bfloat16), sl(seeds.vecs), (((1,), (1,)), ((), ())),
+            preferred_element_type=jnp.float32,
+        )
+        # rank-equivalent (e.g. +‖q‖² dropped); bf16 scores halve the bytes
+        # the selection reads — ranking precision only, the E winners are
+        # exactly re-scored below
+        scores = mm(dot, sl(seeds.norms)[None, :]) + sl(seeds.bias)[None, :]
+        return scores.astype(jnp.bfloat16)
+
+    _, ii = min_k(block, seeds.vecs.shape[0], e)
+    sids = jnp.where(seeds.bias[ii] == 0.0, seeds.ids[ii], -1)
     sd = dists_to_ids(graph.vectors, graph.scales, graph.norms, q, qn, sids,
                       metric)
     return sids, sd
@@ -405,7 +402,7 @@ def knn_search(
     seed_e: int = 16,
     compact_k: int | None = None,
 ):
-    """Full Alg 5: entry into layer 0 (greedy descent, or the MXU seed scan
+    """Full Alg 5: entry into layer 0 (greedy descent, or the matmul seed scan
     when `seeds` is given — see SeedIndex), then an ef-wide beam; returns
     (ids i32[B, k], dists f32[B, k]) ascending, -1/inf padded.  Tombstoned
     nodes are traversed but filtered from results (hnswlib mark_deleted
@@ -433,7 +430,7 @@ def knn_search(
     from ocaml_hnsw_tpu.ops.metrics import get_metric
 
     if seeds is not None and get_metric(metric).matmul_score is None:
-        seeds = None  # registry metric without an MXU form: greedy descent
+        seeds = None  # registry metric without a matmul form: greedy descent
     q = preprocess_queries(queries, metric)
     qn = query_norms(q, metric)
     if seeds is not None:
@@ -458,7 +455,7 @@ def knn_search(
         compact_k=compact_k,
     )
     # tombstone filter, then final top-k (beam is sorted but masking reorders;
-    # a small bitonic sort — top_k has a multi-ms floor per call)
+    # a small bitonic sort)
     dead = graph.deleted[jnp.maximum(ids, 0)] | (ids < 0)
     d = jnp.where(dead, INF, d)
     out_d, out_ids = topk_ascending(d, jnp.where(dead, -1, ids), k)

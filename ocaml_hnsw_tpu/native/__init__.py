@@ -3,7 +3,7 @@
 Compiled on first use with g++ -O3 (cached next to the source).  See
 hnsw_ref.cpp for what this engine is and is not: it is the measurable
 stand-in for the reference's single-threaded CPU performance and a fast
-host-side oracle — not part of the TPU serving path.
+host-side oracle — not part of the accelerator serving path.
 """
 
 from __future__ import annotations

@@ -5,10 +5,10 @@
 // paper, Malkov & Yashunin arXiv:1603.09320, Algorithms 1–5 — implemented
 // here from the paper, matching the Python oracle in oracle/hnsw.py).
 //
-// Roles in this framework (it is NOT on the TPU serving path):
+// Roles in this framework (it is NOT on the accelerator serving path):
 //  1. the measurable stand-in for the reference's single-threaded build/query
-//     throughput — BASELINE.md's "≥10× the single-threaded reference" build
-//     target is scored against this engine on this machine's host CPU;
+//     throughput — the "≥10× the single-threaded reference" build target
+//     (BASELINE.json) is scored against this engine on the host CPU;
 //  2. a fast behavioral oracle for large parity tests (the NumPy oracle is
 //     exact but slow beyond a few thousand points).
 //

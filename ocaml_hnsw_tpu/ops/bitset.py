@@ -1,12 +1,12 @@
-"""Dense visited-set ops — the TPU replacement for the reference's per-query
+"""Dense visited-set ops — the tensor replacement for the reference's per-query
 visited hash set (SURVEY.md §2 "Visited set", §2 native-component item 3).
 
 Two modes, chosen by the search engine:
 
 - **exact**: one bit per node slot, uint32[B, N_cap/32].  Correct but the
   buffer is B·N_cap/8 bytes, and XLA cannot alias the scatter inside a
-  while_loop — every iteration pays a full copy (measured ~8 ms/iter at
-  B=4096, N=1M on v5e).  Right choice for small indexes.
+  while_loop — every iteration pays a full copy of that buffer.  Right
+  choice for small indexes.
 - **hashed**: a fixed 2^b-bit bitmap per query (Knuth multiplicative hash,
   high bits).  Collisions make a fresh candidate look visited — a tunable
   ~1% skip rate — in exchange for a bitmap that is orders of magnitude
@@ -70,7 +70,7 @@ def first_occurrence_mask(ids: jax.Array) -> jax.Array:
     """bool[B, K]: True on the first occurrence of each value within its row.
 
     Deduplicates before `bitset_set` so the scatter-add stays an exact OR;
-    K is small so the O(K²) comparison is cheap on the VPU."""
+    K is small so the O(K²) elementwise comparison is cheap."""
     eq = ids[:, :, None] == ids[:, None, :]  # [B, K, K]
     k = ids.shape[1]
     earlier = jnp.tril(jnp.ones((k, k), dtype=bool), k=-1)

@@ -1,5 +1,5 @@
-"""Batched distance computation — the TPU replacement for the reference's L0
-"vector storage & distance" layer (SURVEY.md §1): instead of one scalar
+"""Batched distance computation — the tensor replacement for the reference's
+L0 "vector storage & distance" layer (SURVEY.md §1): instead of one scalar
 `distance(a, b)` call per edge, every frontier expansion computes a whole
 [B, K] block of query↔neighbor distances.
 
@@ -7,13 +7,16 @@ Metric conventions match the oracle / hnswlib surface: "l2" = squared
 Euclidean, "ip" = 1 - <q, x>, "cosine" = 1 - <q̂, x̂> with vectors normalized
 at add/query time, making it identical to "ip" on-device.
 
-Precision note (load-bearing): TPU MXU matmuls on f32 inputs default to bf16
-multiply passes, whose ~0.4% relative error is larger than the gap between
-the 10th and 11th nearest neighbor on clustered data — it silently scrambles
-neighbor order (observed as a recall plateau on hardware, not on CPU).  The
-per-candidate l2 path therefore computes exact f32 (x−q)² on the VPU — the
-search is HBM-bandwidth-bound, so these FLOPs are free — and every remaining
-MXU contraction forces Precision.HIGHEST.
+Precision note (load-bearing): on an H100, an f32 matmul at the DEFAULT
+precision runs on the tensor cores in TF32 (10-bit mantissa, ~1e-3 relative
+error), which is larger than the gap between the 10th and 11th nearest
+neighbor on clustered data — it silently scrambles neighbor order on the
+card and not on the CPU, where DEFAULT is f32.  The per-candidate l2 path
+therefore computes exact f32 (x−q)² elementwise — the search is bound by
+memory traffic, so these FLOPs are free — and every remaining exact
+contraction forces Precision.HIGHEST, which is true f32 (chip_smoke.py
+phase 6 prints both errors).  Only the build's shrink heuristic keeps
+DEFAULT (TF32): it decides near-tie diversity only.
 """
 
 from __future__ import annotations
@@ -46,7 +49,7 @@ def dists_to_ids(
     """Distances d(q_b, x_{ids[b,k]}) as f32[B, K]; +inf at sentinel slots.
 
     The gather of `vectors` rows is the bandwidth-critical op — storage dtype
-    (f32/bf16/int8) sets its byte cost.  l2 uses exact VPU (x−q)² after
+    (f32/bf16/int8) sets its byte cost.  l2 uses exact elementwise (x−q)² after
     dequantization (see precision note above); ip/cosine use one
     HIGHEST-precision contraction.
     """

@@ -1,4 +1,4 @@
-"""Metric registry — the TPU equivalent of the reference's DISTANCE/VALUE
+"""Metric registry — the tensor-program equivalent of the reference's DISTANCE/VALUE
 functor parameter (SURVEY.md §2 "Value/Distance functor interface", §1 L0).
 
 The OCaml reference is a functor: a user instantiates the library over their
@@ -15,12 +15,13 @@ A metric supplies:
       f32[..., D] (broadcast against rows' leading dims) -> f32[..., K].
       Write it array-namespace-agnostic (operators + methods, e.g.
       ``((rows - q[..., None, :]) ** 2).sum(-1)``) so the SAME function runs
-      as traced jnp inside jit on TPU and on plain NumPy inside the oracle.
+      as traced jnp inside jit on the device and on plain NumPy inside the
+      oracle.
       If that's not possible, pass a separate ``np_pair_dist``.
 
   matmul_score(dot, x_norms) -> s  OPTIONAL.  Rank-equivalent scores from one
-      MXU contraction: dot f32[B, N] = q·xᵀ, x_norms f32[N] = ‖x‖².  Enables
-      the flat engine's bf16/int8 MXU scan and the HNSW seed-scan entry.
+      matrix contraction: dot f32[B, N] = q·xᵀ, x_norms f32[N] = ‖x‖².
+      Enables the flat engine's bf16/int8 scan and the HNSW seed-scan entry.
       Without it, the flat engine falls back to a chunked exact scan and the
       HNSW engine enters layer 0 by greedy descent — correct, slower.
 
@@ -117,11 +118,13 @@ def registered_metrics() -> tuple[str, ...]:
 
 
 # --------------------------------------------------------------- built-ins
-# Exact VPU forms (namespace-agnostic: run on jnp tracers AND NumPy arrays).
+# Exact elementwise forms (namespace-agnostic: run on jnp tracers AND NumPy
+# arrays).
 # l2 is *squared* Euclidean; ip/cosine are 1 - dot with cosine rows/queries
 # pre-normalized — the hnswlib conventions pinned in SURVEY.md §1 L0.
 # Precision note (models/search.py / ops/distance.py): the pair forms stay
-# elementwise-f32 on the VPU because bf16 MXU error scrambles neighbor order;
+# elementwise-f32 because bf16 (or TF32) matmul error scrambles neighbor
+# order;
 # the matmul_score forms are only used where a HIGHEST/rescored contraction
 # is in place (flat scan + rerank, seed scan + exact re-score).
 

@@ -1,9 +1,9 @@
-"""Vector-store quantization (BASELINE config 4: int8-quantized distances).
+"""Vector-store quantization (int8-quantized distances, the deep10m config).
 
 Symmetric per-vector int8: x_q = round(x / s), s = max|x| / 127.  The search
-loop is HBM-gather-bound (measured on v5e), so shrinking the row payload
-4× (int8) or 2× (bf16) is the principal QPS lever; distances are always
-accumulated in f32 on the VPU after dequantization, so the only error is the
+loop is bound by its row gathers, so shrinking the row payload 4× (int8)
+or 2× (bf16) is the principal QPS lever; distances are always accumulated
+in f32 after dequantization, so the only error is the
 quantization noise itself (≤ s/2 per coordinate).
 """
 

@@ -1,11 +1,11 @@
 """Bitonic sort / merge networks for the beam update — the heap replacement.
 
-`lax.top_k` on TPU has a multi-millisecond floor per call at beam shapes
-([B≈2k, ~330] even for k=8), and the beam loop called it twice per iteration —
-measured as the dominant cost of both search and build.  A bitonic network is
-the TPU-shaped alternative: every compare-exchange stage is an elementwise
-min/max against a *statically* permuted copy (idx ^ j), so the whole merge is
-VPU work with no dynamic scatter/gather and no sort op.
+The beam loop merges candidates into the beam twice per iteration.  A
+bitonic network does it without a sort op: every compare-exchange stage is
+an elementwise min/max against a *statically* permuted copy (idx ^ j), so
+the whole merge is elementwise work with no dynamic scatter/gather.  Whether
+`lax.top_k` or a sort beats it on the GPU at beam widths is not measured
+yet.
 
 Cost: full sort of width n = log²(n)/2 stages; merging an ascending run with a
 descending run of equal width = log(n) stages.  The beam loop only ever needs
@@ -79,9 +79,9 @@ def entries_to_beam(entry_ids, entry_d, ef: int):
     """Initial beam from entry candidates: sort ascending at the entries'
     own (power-of-two) width, then pad/truncate to ef.
 
-    Replaces `lax.top_k(-d, ef)` over the ef-padded entries — top_k has a
-    multi-millisecond floor per call on TPU while entry widths are tiny
-    (seed_e=8..32), so a 6-15 stage bitonic network at the narrow width wins.
+    Replaces `lax.top_k(-d, ef)` over the ef-padded entries: entry widths
+    are tiny (seed_e=8..32), so a 6-15 stage bitonic network at the narrow
+    width suffices.
     Returns (beam_ids i32[B, ef], beam_d f32[B, ef]) ascending."""
     e0 = entry_ids.shape[1]
     p2 = next_pow2(e0)
@@ -102,8 +102,8 @@ def entries_to_beam(entry_ids, entry_d, ef: int):
 
 def topk_ascending(d, payload_ids, k: int):
     """Smallest-k of f32[B, n] with an i32 payload, ascending — a bitonic
-    full sort at next_pow2(n), replacing `lax.top_k(-d, k)` (multi-ms floor
-    per call at these widths).  Returns (d f32[B, k], ids i32[B, k])."""
+    full sort at next_pow2(n), in place of `lax.top_k(-d, k)`.  Returns
+    (d f32[B, k], ids i32[B, k])."""
     n = d.shape[-1]
     p2 = next_pow2(n)
     if p2 > n:

@@ -1,8 +1,8 @@
 """Shape padding helpers.
 
-XLA traces everything under jit once per static shape (static shapes are a hard
-requirement on TPU), so all index capacities and query batches are padded to
-aligned sizes and masked with sentinels.
+XLA traces everything under jit once per static shape, so all index
+capacities and query batches are padded to aligned sizes and masked with
+sentinels (a bounded set of compiled programs).
 """
 
 from __future__ import annotations

@@ -241,7 +241,7 @@ class TestFlatIndex:
 
     def test_resize_on_load_grows_tensors(self, tmp_path):
         """load_index(max_elements=...) must actually grow capacity so
-        subsequent add_items works (VERDICT r3: the count-only bump let
+        subsequent add_items works (the count-only bump let
         add_items overrun the tensors)."""
         from ocaml_hnsw_tpu.api import FlatIndex
         data = clustered(4100, 16, n_clusters=8, seed=29)
@@ -295,7 +295,7 @@ class TestStreaming:
 
 
 class TestFastPathParity:
-    """VERDICT r2 task 5: the public Index.knn_query must serve the
+    """the public Index.knn_query must serve the
     benchmarked engine — identical results to a direct knn_search call at
     equal knobs (seed entry + auto compact_k active at this size)."""
 

@@ -171,7 +171,7 @@ class TestBulkDispatch:
         st.host_n = 5  # non-empty index -> rounds
         assert not st._bulk_eligible(st.BULK_THRESHOLD + 1)
         st.host_n = 0
-        st.bulk_first_add = False  # explicit opt-out (advisor r3)
+        st.bulk_first_add = False  # explicit opt-out
         assert not st._bulk_eligible(st.BULK_THRESHOLD + 1)
         cfg2 = HnswConfig(dim=16, M=8, ef_construction=40, select="simple")
         assert not BuildState(cfg2, 2500)._bulk_eligible(10**6)
@@ -191,16 +191,17 @@ class TestBulkDispatch:
     def test_hbm_guard_uses_capacity_not_batch(self):
         """The guard sizes the workspace from the padded index CAPACITY
         (what bulk_build allocates), not the first-batch row count — probed
-        via the pure arithmetic, no tensor allocation (advisor r3)."""
+        via the pure arithmetic, no tensor allocation."""
         from ocaml_hnsw_tpu.models.bulk import bulk_workspace_bytes
         from ocaml_hnsw_tpu.models.graph import capacity
 
-        # 768-d 10M: workspace alone far exceeds one 16 GB chip
+        # 768-d 10M: workspace alone far exceeds the budget (16 GiB
+        # fallback limit on a backend that reports none)
         need = bulk_workspace_bytes(capacity(10**7), 768, m=16, m_max0=32)
-        assert need >= BuildState.BULK_BUDGET_BYTES
+        assert need >= BuildState.bulk_budget_bytes()
         # 128-d 1M (the headline shape) comfortably fits
         need = bulk_workspace_bytes(capacity(10**6), 128, m=16, m_max0=32)
-        assert need < BuildState.BULK_BUDGET_BYTES
+        assert need < BuildState.bulk_budget_bytes()
         # dim=96 pads to 128 lanes: equal workspace to dim=128
         assert bulk_workspace_bytes(capacity(10**6), 96, m=16, m_max0=32) \
             == need

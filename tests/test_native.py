@@ -1,7 +1,7 @@
 """Native C++ baseline engine tests: recall vs brute force, agreement with the
 NumPy oracle's quality, and a build-throughput sanity check (this engine is
-the single-threaded CPU baseline that BASELINE.md's 10× target is scored
-against)."""
+the single-threaded CPU baseline that the 10× build target in BASELINE.json
+is scored against)."""
 
 import time
 
@@ -61,9 +61,8 @@ def test_build_rate_measured():
 
 
 def _recall_parity(n: int, dim: int, round_size: int, efs) -> None:
-    """BASELINE north-star: recall@10 at equal (M, efC, ef) must match the
-    reference (BASELINE.md's 200k parity table has the TPU engine beating
-    native at every ef)."""
+    """North-star parity: recall@10 at equal (M, efC, ef) must match the
+    single-threaded reference engine."""
     import jax.numpy as jnp
     from ocaml_hnsw_tpu.config import HnswConfig
     from ocaml_hnsw_tpu.models.build import BuildState

@@ -1,4 +1,4 @@
-"""Unit tests for the TPU op layer: distances, visited bitset, dedup masks."""
+"""Unit tests for the device op layer: distances, visited bitset, dedup masks."""
 
 import numpy as np
 import jax.numpy as jnp

@@ -8,6 +8,7 @@ assert recall-level parity plus exact distance values, not bit-equal beams.
 
 import numpy as np
 import pytest
+import jax
 import jax.numpy as jnp
 
 from ocaml_hnsw_tpu.bench.datasets import clustered, queries_like
@@ -356,11 +357,18 @@ class TestPackedBuildDist:
         lv = jnp.asarray(B.sample_levels(
             np.random.RandomState(5), 256, cfg.mL, st.l_max))
         kw = st._round_kwargs()
-        args = (st.graph, q, lv, st.graph.n, jnp.int32(256), st.seed_bank,
-                st.seed_n, st.seed_vecs, st.seed_norms, st.pack_pay,
-                st.pack_meta, st.pack_scale)
-        out_a = B.insert_round(*args, st.pack_dist, **kw)
-        out_b = B.insert_round(*args, None, **kw)
+        # insert_round donates its graph: each call gets its own copy of
+        # the snapshot, and `start` comes from the host, not from inside
+        # the donated tree
+        start = jnp.int32(st.host_n)
+
+        def args():
+            return (jax.tree.map(jnp.copy, st.graph), q, lv, start,
+                    jnp.int32(256), st.seed_bank, st.seed_n, st.seed_vecs,
+                    st.seed_norms, st.pack_pay, st.pack_meta, st.pack_scale)
+
+        out_a = B.insert_round(*args(), st.pack_dist, **kw)
+        out_b = B.insert_round(*args(), None, **kw)
         assert np.array_equal(np.asarray(out_a[0].adj0),
                               np.asarray(out_b[0].adj0))
         assert np.array_equal(np.asarray(out_a[0].adj_up),

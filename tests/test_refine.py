@@ -1,7 +1,7 @@
 """Query-graph distillation (models/refine.py): structural invariants of the
 re-selected serving adjacency, and recall retention of the distilled packed
 engine at half the build degree (the deg-cut that plain truncation ruins —
-BASELINE.md deg_limit ladder)."""
+the deg_limit ladder)."""
 
 import numpy as np
 import pytest

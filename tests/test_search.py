@@ -1,4 +1,4 @@
-"""Parity tests: the batched TPU engine vs the sequential NumPy oracle
+"""Parity tests: the batched device engine vs the sequential NumPy oracle
 (SURVEY.md §4 "Oracle parity tests") plus exactness and tombstone semantics."""
 
 import numpy as np
@@ -43,7 +43,7 @@ class TestParity:
         t_ids, _ = knn_search(g, jnp.asarray(q), k=10, ef=50, metric=metric)
         r_oracle = recall(o_ids, gt)
         r_tpu = recall(np.asarray(t_ids), gt)
-        # equal ef/M settings ⇒ recall parity within tolerance (BASELINE.md)
+        # equal ef/M settings ⇒ recall parity within tolerance (BASELINE.json)
         assert r_tpu >= r_oracle - 0.02, (r_tpu, r_oracle)
         assert r_tpu >= 0.9
 

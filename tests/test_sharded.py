@@ -57,7 +57,7 @@ class TestShardedQuery:
 
 
 class TestShardedPacked:
-    """VERDICT r3 task 7: the sharded path serves the per-shard packed
+    """the sharded path serves the per-shard packed
     inline-int8 engine (the single-chip fast path) above the threshold."""
 
     def test_packed_query_matches_classic(self, sharded, monkeypatch):
@@ -176,7 +176,7 @@ class TestShardedLifecycle:
 
 
 class TestShardedStorage:
-    """VERDICT r2 task 9: quantized storage through the sharded engine."""
+    """quantized storage through the sharded engine."""
 
     def test_int8_build_query_saveload(self, tmp_path):
         data = clustered(400, 16, n_clusters=16, seed=21)
